@@ -1,6 +1,6 @@
 """End-to-end demo: segment a synthetic texture mosaic with three pipeline
 families (k-means, GMM, SLIC + n-cut), score against ground truth, and save
-overlays. Runs anywhere (CPU or TPU, no dataset needed); with BSDS500_ROOT
+overlays. Runs anywhere (CPU or GPU, no dataset needed); with BSDS500_ROOT
 set, pass --bsds <image-id> to use a real image instead.
 
 Run: python examples/demo.py [--out-dir out/] [--bsds 100075]
@@ -11,15 +11,15 @@ import os
 
 import numpy as np
 
-import gabor_color_image_segmentation_tpu as gcis
-from gabor_color_image_segmentation_tpu.data import synthetic_mosaic
-from gabor_color_image_segmentation_tpu.metrics import pri_np
-from gabor_color_image_segmentation_tpu.metrics.boundary import fboundary_np
-from gabor_color_image_segmentation_tpu.models.pipeline import (
+import gabor_color_image_segmentation as gcis
+from gabor_color_image_segmentation.data import synthetic_mosaic
+from gabor_color_image_segmentation.metrics import pri_np
+from gabor_color_image_segmentation.metrics.boundary import fboundary_np
+from gabor_color_image_segmentation.models.pipeline import (
     segment_image,
     segment_images,
 )
-from gabor_color_image_segmentation_tpu.utils.visualize import save_label_map
+from gabor_color_image_segmentation.utils.visualize import save_label_map
 
 
 def main():
@@ -31,7 +31,7 @@ def main():
     os.makedirs(args.out_dir, exist_ok=True)
 
     if args.bsds:
-        from gabor_color_image_segmentation_tpu.data.bsds import BSDS500
+        from gabor_color_image_segmentation.data.bsds import BSDS500
         rgb, gts = BSDS500().load("test", args.bsds)
     else:
         rgb, gt = synthetic_mosaic(h=321, w=481, n_regions=5, seed=args.seed)

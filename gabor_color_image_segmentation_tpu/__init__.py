@@ -1,41 +1,35 @@
-"""gabor_color_image_segmentation_tpu — TPU-native Gabor color image segmentation.
+"""The package's former import name, kept as an alias.
 
-A brand-new JAX / XLA / Pallas / pjit framework with the capabilities of the
-reference repo ``CVMethods/gabor_color_image_segmentation`` (see SURVEY.md):
-
-    image -> CIELab -> Gabor filter bank -> per-channel complex conv ->
-    magnitude -> Gaussian energy smoothing -> pixel features (energy + color)
-    -> {k-means | GMM} clustering and/or {SLIC superpixels -> affinity graph
-    -> spectral normalized cut | graph merge min-cut} -> label map
-    -> BSDS500 PRI / boundary-F evaluation.
-
-Design stance (SURVEY.md §7.1): one pure-functional jit-compiled pipeline,
-NHWC float32 (bfloat16 fast path), explicit PRNG keys, frozen dataclass
-configs, batch-of-images as the unit of work, data-parallel sharding over a
-``jax.sharding.Mesh`` and spatial tiling with halo exchange for large images.
-
-The reference mount at /root/reference is empty (SURVEY.md §0); behavioural
-parity is established against the in-repo CPU golden path (``golden/``) built
-from the library routines the reference family uses (scipy/OpenCV/sklearn).
+Importing any module under this name gives the module of the same dotted
+path under ``gabor_color_image_segmentation``: the same object, not a copy,
+so classes, jit caches and module state are shared by both names.
 """
 
-from gabor_color_image_segmentation_tpu.config import (
-    BankConfig,
-    ClusterConfig,
-    GraphConfig,
-    PipelineConfig,
-    PRESETS,
-    preset,
-)
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+_TARGET = "gabor_color_image_segmentation"
 
-__all__ = [
-    "BankConfig",
-    "ClusterConfig",
-    "GraphConfig",
-    "PipelineConfig",
-    "PRESETS",
-    "preset",
-    "__version__",
-]
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(__name__ + "."):
+            return None
+        real = importlib.import_module(_TARGET + name[len(__name__):])
+        spec = importlib.util.spec_from_loader(name, self)
+        spec.loader_state = real
+        return spec
+
+    def create_module(self, spec):
+        real = spec.loader_state
+        spec.loader_state = real.__spec__  # the import system resets __spec__
+        return real
+
+    def exec_module(self, module):
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[__name__] = importlib.import_module(_TARGET)

@@ -1,10 +1,10 @@
 """Golden clustering: numpy Lloyd k-means (deterministic maximin init shared
-with the TPU path) and sklearn-semantics GMM EM.
+with the device path) and sklearn-semantics GMM EM.
 
 Init contract (shared with models/kmeans.py): deterministic farthest-point
 ("maximin") seeding — center 0 is the point farthest from the data mean;
 center i maximizes the min squared distance to chosen centers; argmax ties
-break to the lowest index. Fully deterministic, so golden and TPU paths start
+break to the lowest index. Fully deterministic, so golden and device paths start
 from identical centers and label parity is testable without PRNG coupling.
 """
 
@@ -17,7 +17,7 @@ def maximin_init_np(x: np.ndarray, k: int) -> np.ndarray:
     """x: (N, D) -> (k, D) deterministic farthest-point centers.
 
     Distance form mirrors models/kmeans.py maximin_init exactly:
-    ||x||^2 - 2 x@c + ||c||^2 (matvec form), so golden and TPU paths make
+    ||x||^2 - 2 x@c + ||c||^2 (matvec form), so golden and device paths make
     identical seed picks up to dtype rounding."""
     xsq = (x * x).sum(axis=1)
 
@@ -50,7 +50,7 @@ def kmeans_golden_multigrid(
     refine_iters: int, coarse_levels: int = 1, mid_iters: int = 0,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Mirror of the device multigrid Lloyd schedule
-    (models/kmeans.py::kmeans_multigrid / kmeans_pallas multigrid): maximin
+    (models/kmeans.py::kmeans_multigrid): maximin
     seed + coarse_iters Lloyd on the pooled grid (pool2x2 applied
     ``coarse_levels`` times — level 2 = exact 4x4 block means, because 2x2
     means of 2x2 means ARE the 4x4 mean), then — with mid_iters > 0 —
@@ -80,7 +80,7 @@ def kmeans_golden(
     Empty-cluster rule (shared contract): an empty cluster keeps its previous
     center. Distance = squared euclidean; label ties -> lowest center index
     (np.argmin behaviour, matches jnp.argmin). init_stride seeds maximin from
-    every n-th row — the identical subset the TPU path uses. centers0
+    every n-th row — the identical subset the device path uses. centers0
     overrides the init (the multigrid refine stage).
     """
     x = x.astype(np.float32)
@@ -125,15 +125,16 @@ def gmm_golden(
     full-resolution pixel. refine_iters > 0 then runs that many
     full-resolution EM iterations before the final E-step (restores the
     covariance scale the block-mean fit shrinks — device twin:
-    gmm_pallas.gmm_fused_t_xt). Returns (labels (N,), resp (N,k), params
+    models/gmm.py::gmm_fit). Returns (labels (N,), resp (N,k), params
     dict).
     """
     x = x.astype(np.float64)
     n, d = x.shape
     fit_x = x
     if fit_pool > 0:
-        # level guard replicated from gmm_pallas.gmm_fused_t_xt (schedule
-        # parity): stop before the grid degenerates or the fit set is tiny
+        # level guard replicated from models/gmm.py::gmm_fit_levels
+        # (schedule parity): stop before the grid degenerates or the fit
+        # set is tiny
         h, w = hw
         for _ in range(fit_pool):
             if h < 4 or w < 4 or (h // 2) * (w // 2) < 4096:

@@ -1,19 +1,25 @@
-"""Golden feature extraction: cv2 correlation + separable Gaussian smoothing.
+"""Golden feature extraction: 2-D correlation + separable Gaussian smoothing.
 
-Convention contract shared with the TPU path (ops/features.py docstring):
-correlation, REFLECT_101 borders, per-channel depthwise responses, complex
-magnitude, per-scale Gaussian energy smoothing, energies[ch*N + j] layout,
-optional per-image standardization with color_weight scaling.
+Convention contract shared with the device path (ops/features.py
+docstring): correlation, REFLECT_101 borders, per-channel depthwise
+responses, complex magnitude, per-scale Gaussian energy smoothing,
+contract-order energy layout, optional per-image standardization with
+color_weight scaling.
+
+The filters are scipy.ndimage's ``correlate``/``correlate1d`` in
+``mode="mirror"``, which is OpenCV's BORDER_REFLECT_101 and equals the
+reference family's ``cv2.filter2D``/``cv2.sepFilter2D`` (tests/test_golden.py
+checks this where OpenCV is installed).
 """
 
 from __future__ import annotations
 
 
-import cv2
 import numpy as np
+from scipy import ndimage
 
-from gabor_color_image_segmentation_tpu.config import BankConfig, ClusterConfig
-from gabor_color_image_segmentation_tpu.ops.bank import GaborBank, make_bank
+from gabor_color_image_segmentation.config import BankConfig, ClusterConfig
+from gabor_color_image_segmentation.ops.bank import GaborBank, make_bank
 
 # sRGB -> XYZ (D65); identical constants to ops/color.py.
 _RGB2XYZ = np.array(
@@ -42,23 +48,18 @@ def rgb_to_lab_np(rgb: np.ndarray) -> np.ndarray:
 
 
 def _corr2d(ch: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """cv2.filter2D = correlation with BORDER_REFLECT_101 (the cv2 default)."""
-    return cv2.filter2D(
-        ch.astype(np.float32),
-        cv2.CV_32F,
-        kernel.astype(np.float32),
-        borderType=cv2.BORDER_REFLECT_101,
+    """2-D correlation with REFLECT_101 borders (= cv2.filter2D)."""
+    return ndimage.correlate(
+        ch.astype(np.float32), kernel.astype(np.float32), mode="mirror"
     )
 
 
 def _sep_smooth(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
-    return cv2.sepFilter2D(
-        x.astype(np.float32),
-        cv2.CV_32F,
-        taps.astype(np.float32),
-        taps.astype(np.float32),
-        borderType=cv2.BORDER_REFLECT_101,
-    )
+    """Separable correlation, rows then columns, REFLECT_101 borders
+    (= cv2.sepFilter2D)."""
+    t = taps.astype(np.float32)
+    y = ndimage.correlate1d(x.astype(np.float32), t, axis=1, mode="mirror")
+    return ndimage.correlate1d(y, t, axis=0, mode="mirror")
 
 
 def gabor_energies_golden(img: np.ndarray, bank: GaborBank) -> np.ndarray:
@@ -96,8 +97,8 @@ def assemble_features_np(
         [energies.astype(np.float32), color.astype(np.float32)], axis=-1
     )
     if cluster_cfg.normalize:
-        # one-pass variance E[x^2] - mu^2, the exact formula the TPU path
-        # uses (ops/features.py assemble_features: a two-pass std would
+        # one-pass variance E[x^2] - mu^2, the exact formula the device
+        # path uses (ops/features.py assemble_features: a two-pass std would
         # force a materialized f32 copy of the feature tensor on-device)
         flat = feats.reshape(-1, feats.shape[-1]).astype(np.float64)
         mean = flat.mean(axis=0)

@@ -1,7 +1,7 @@
 """Golden graph stage: numpy SLIC + scipy-eigh normalized cut.
 
 Mirrors models/slic.py and models/graph.py stage-for-stage in numpy/scipy
-(float64 accumulate) so the TPU path has an executable CPU oracle; a separate
+(float64 accumulate) so the device path has an executable CPU oracle; a separate
 sanity test cross-checks the spectral stage against sklearn
 SpectralClustering on synthetic graphs.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.models.slic import grid_shape
+from gabor_color_image_segmentation.models.slic import grid_shape
 from golden.cluster import kmeans_golden
 
 
@@ -153,9 +153,9 @@ def ncut_golden(
     d2 = np.maximum(sq[:, None] - 2 * f @ f.T + sq, 0.0)
     if affinity_sigma is None:
         # sigma_scale mirrors GraphConfig.affinity_sigma_scale (models/
-        # graph.py affinity_matrix — the round-5 bandwidth remedy); the
-        # 4x4-strided median subsample above S=512 mirrors the TPU
-        # path's sort-cost fix (same elements, same statistic)
+        # graph.py affinity_matrix — the bandwidth remedy); the 4x4-strided
+        # median subsample above S=512 mirrors the device path's
+        # (same elements, same statistic)
         d2m = d2[::4, ::4] if d2.shape[0] > 512 else d2
         s2 = max(np.median(d2m), 1e-12) * sigma_scale
     else:
@@ -201,7 +201,7 @@ def graph_inputs_golden(
     golden energies + color, 2x2-mean-pooled ``pool`` times BEFORE
     assembly (standardization moments measured on the pooled grid).
     Returns ((Hp, Wp, D) standardized feats, (Hp, Wp, 3) pooled Lab)."""
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
+    from gabor_color_image_segmentation.ops.bank import make_bank
     from golden.features import (
         assemble_features_np,
         gabor_energies_golden,

@@ -6,8 +6,8 @@ import cv2
 import numpy as np
 import pytest
 
-from gabor_color_image_segmentation_tpu.config import BankConfig
-from gabor_color_image_segmentation_tpu.ops.bank import (
+from gabor_color_image_segmentation.config import BankConfig
+from gabor_color_image_segmentation.ops.bank import (
     gabor_kernel,
     gaussian_kernel_1d,
     make_bank,

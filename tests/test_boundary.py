@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.metrics.boundary import (
+from gabor_color_image_segmentation.metrics.boundary import (
     boundaries_np,
     default_tolerance,
     fboundary_jax,
@@ -84,7 +84,7 @@ def test_device_dt_exactness():
     """The truncated distance transform is exact within its radius."""
     from scipy.ndimage import distance_transform_edt
 
-    from gabor_color_image_segmentation_tpu.metrics.boundary import _truncated_sq_dt
+    from gabor_color_image_segmentation.metrics.boundary import _truncated_sq_dt
 
     rng = np.random.default_rng(2)
     mask = rng.random((32, 48)) < 0.03
@@ -127,7 +127,7 @@ def _brute_force_max_matching(pairs, n_g):
 
 def test_optimal_matcher_is_maximum_cardinality():
     """Hopcroft-Karp matched count == brute-force optimum on random maps."""
-    from gabor_color_image_segmentation_tpu.metrics.boundary import (
+    from gabor_color_image_segmentation.metrics.boundary import (
         _candidate_pairs,
         _match_one,
     )
@@ -154,7 +154,7 @@ def test_greedy_gap_measured():
     which is exactly why the optimal matcher is now the reported one. The
     pin documents the measured envelope (ratios 0.76-0.94 over these seeds;
     greedy is 1/2-optimal in theory)."""
-    from gabor_color_image_segmentation_tpu.metrics.boundary import (
+    from gabor_color_image_segmentation.metrics.boundary import (
         _match_one,
         _match_one_greedy,
     )

@@ -42,7 +42,7 @@ def fake_bsds(tmp_path):
 
 
 def test_loader_roundtrip(fake_bsds):
-    from gabor_color_image_segmentation_tpu.data.bsds import BSDS500, bsds_available
+    from gabor_color_image_segmentation.data.bsds import BSDS500, bsds_available
 
     assert bsds_available(fake_bsds)
     ds = BSDS500(fake_bsds)
@@ -59,8 +59,8 @@ def test_loader_roundtrip(fake_bsds):
 
 def test_eval_on_fake_bsds(fake_bsds, monkeypatch, tmp_path):
     monkeypatch.setenv("BSDS500_ROOT", fake_bsds)
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.eval import evaluate, load_split
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.eval import evaluate, load_split
 
     data = load_split("test")
     assert len(data) == 2
@@ -72,7 +72,7 @@ def test_eval_on_fake_bsds(fake_bsds, monkeypatch, tmp_path):
 
 
 def test_plot_metrics(tmp_path):
-    from gabor_color_image_segmentation_tpu.utils.visualize import plot_metrics
+    from gabor_color_image_segmentation.utils.visualize import plot_metrics
 
     p = tmp_path / "rows.jsonl"
     with open(p, "w") as f:

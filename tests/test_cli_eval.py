@@ -5,9 +5,9 @@ import os
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.cli import main as cli_main
-from gabor_color_image_segmentation_tpu.eval import evaluate, load_split
-from gabor_color_image_segmentation_tpu.config import preset
+from gabor_color_image_segmentation.cli import main as cli_main
+from gabor_color_image_segmentation.eval import evaluate, load_split
+from gabor_color_image_segmentation.config import preset
 
 
 def test_cli_info(capsys):
@@ -41,7 +41,7 @@ def test_eval_resume(tmp_path):
 
 
 def test_feature_cache(tmp_path):
-    from gabor_color_image_segmentation_tpu.utils.cache import FeatureCache
+    from gabor_color_image_segmentation.utils.cache import FeatureCache
 
     cache = FeatureCache(str(tmp_path / "feats.h5"))
     cfg = preset("config0")
@@ -59,8 +59,8 @@ def test_eval_sweep_ods_ois(tmp_path, tiny_mosaic):
     (OIS >= ODS by construction)."""
     import json
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.eval import evaluate_sweep
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.eval import evaluate_sweep
 
     rgb, gt = tiny_mosaic
     data = [("a", rgb, [gt]), ("b", rgb[:, ::-1].copy(), [gt[:, ::-1].copy()])]

@@ -3,7 +3,7 @@
 import cv2
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.ops.color import rgb_to_lab
+from gabor_color_image_segmentation.ops.color import rgb_to_lab
 from golden.features import rgb_to_lab_np
 
 

@@ -5,11 +5,11 @@ import dataclasses
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.config import BankConfig, preset
-from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
-from gabor_color_image_segmentation_tpu.models.pipeline import segment_image
-from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-from gabor_color_image_segmentation_tpu.ops.features import gabor_energies
+from gabor_color_image_segmentation.config import BankConfig, preset
+from gabor_color_image_segmentation.metrics.pri import pri_np
+from gabor_color_image_segmentation.models.pipeline import segment_image
+from gabor_color_image_segmentation.ops.bank import make_bank
+from gabor_color_image_segmentation.ops.features import gabor_energies
 from golden.features import features_golden, gabor_energies_golden
 
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gabor_color_image_segmentation_tpu.config import BankConfig, ClusterConfig
-from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-from gabor_color_image_segmentation_tpu.ops.features import (
+from gabor_color_image_segmentation.config import BankConfig, ClusterConfig
+from gabor_color_image_segmentation.ops.bank import make_bank
+from gabor_color_image_segmentation.ops.features import (
     assemble_features,
     gabor_energies,
 )
@@ -78,7 +78,7 @@ def test_batch_consistency(lab, bank):
 
 
 def test_energy_index_helper(bank):
-    from gabor_color_image_segmentation_tpu.ops.features import energy_index
+    from gabor_color_image_segmentation.ops.features import energy_index
 
     seen = set()
     for g in bank.groups:
@@ -90,54 +90,6 @@ def test_energy_index_helper(bank):
     assert seen == set(range(3 * bank.n_kernels))
 
 
-def test_assemble_pooled_matches_pool_of_normalized(small_mosaic):
-    """assemble_features_t_pooled's pooled buffer == pool2x2 of the
-    normalized features (normalization is per-row affine, so pooling
-    commutes; MXU pooling matmuls vs strided adds differ at ulp level)."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.config import ClusterConfig
-    from gabor_color_image_segmentation_tpu.models.kmeans import pool2x2
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        xt_geometry,
-    )
-    from gabor_color_image_segmentation_tpu.ops.features import (
-        assemble_features_t,
-        assemble_features_t_pooled,
-    )
-    from gabor_color_image_segmentation_tpu.ops.modulated import (
-        gabor_energies_mod,
-    )
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _color_transform,
-    )
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-    from gabor_color_image_segmentation_tpu.config import BankConfig
-
-    rgb, _ = small_mosaic
-    h, w = rgb.shape[:2]
-    bank = make_bank(BankConfig(scales=(2.0, 3.0), orientations=2))
-    color = _color_transform(jnp.asarray(rgb)[None], "lab")
-    e_nhwc = gabor_energies_mod(color, bank, jnp.float32)
-    e_cm = jnp.transpose(e_nhwc, (0, 3, 1, 2))
-    e = e_cm.shape[1]
-    d = e + 3
-    cc = ClusterConfig()
-    dp, n_pad, _ = xt_geometry(h * w, d, jnp.float32)
-    m = (h // 2) * (w // 2)
-    _, m_pad, _ = xt_geometry(m, d, jnp.float32)
-    xt, xp = assemble_features_t_pooled(e_cm, color, cc, dp, n_pad, m_pad)
-    xt_ref = assemble_features_t(e_cm, color, cc, dp, n_pad)
-    assert (np.asarray(xt) == np.asarray(xt_ref)).all()
-    # pooled twin vs pooling the normalized full-res features
-    full = np.asarray(xt)[0, :d, : h * w].T  # (N, D) normalized
-    ref = np.asarray(pool2x2(jnp.asarray(full), h, w))  # (m, D)
-    got = np.asarray(xp)[0, :d, :m].T
-    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
-    assert (np.asarray(xp)[0, d, :m] == 1.0).all()
-    assert (np.asarray(xp)[0, :, m:] == 0.0).all()
-
-
 def test_feature_set_and_coherence_golden(small_mosaic):
     """feature_set ablation + cue_weight="coherence" match the golden
     mirror; "full"/"static" is bit-identical to the pre-knob behavior."""
@@ -145,11 +97,11 @@ def test_feature_set_and_coherence_golden(small_mosaic):
 
     import jax.numpy as jnp
 
-    from gabor_color_image_segmentation_tpu.config import ClusterConfig, preset
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
+    from gabor_color_image_segmentation.config import ClusterConfig, preset
+    from gabor_color_image_segmentation.models.pipeline import (
         compute_features,
     )
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
+    from gabor_color_image_segmentation.ops.bank import make_bank
     from golden.features import features_golden
 
     rgb, _ = small_mosaic
@@ -181,66 +133,3 @@ def test_feature_set_and_coherence_golden(small_mosaic):
     assert f_t.shape[-1] == e
 
 
-def test_coherence_folded_affine_matches_nhwc(small_mosaic):
-    """Round-4 fast-path folding (VERDICT r3 task 5): cue_weight="coherence"
-    folded into the standardization affine (assemble_features_t /
-    kmeans_chw._affine_params via fold_coherence_affine) must equal the
-    NHWC assemble_features coherence weighting — standardization is per-dim
-    affine and block means commute with affines, so computing the weights
-    from RAW buffers is the same map. Checked at coherence_pow 1 and 2."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.config import BankConfig, ClusterConfig
-    from gabor_color_image_segmentation_tpu.models.kmeans_chw import (
-        _affine_params,
-        build_color4,
-    )
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        xt_geometry,
-    )
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _color_transform,
-    )
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-    from gabor_color_image_segmentation_tpu.ops.features import (
-        assemble_features,
-        assemble_features_t,
-    )
-    from gabor_color_image_segmentation_tpu.ops.modulated import (
-        gabor_energies_mod,
-    )
-
-    rgb, _ = small_mosaic
-    h, w = rgb.shape[:2]
-    bank = make_bank(BankConfig(scales=(2.0, 3.0), orientations=2))
-    color = _color_transform(jnp.asarray(rgb)[None], "lab")
-    e_nhwc = gabor_energies_mod(color, bank, jnp.float32)
-    e_cm = jnp.transpose(e_nhwc, (0, 3, 1, 2))
-    e = e_cm.shape[1]
-    d = e + 3
-    for pw in (1.0, 2.0):
-        cc = ClusterConfig(cue_weight="coherence", coherence_pow=pw)
-        ref = np.asarray(assemble_features(e_nhwc, color, cc))[0]  # (H,W,D)
-        # transposed assembly path
-        dp, n_pad, _ = xt_geometry(h * w, d, jnp.float32)
-        xt = assemble_features_t(e_cm, color, cc, dp, n_pad)
-        got = np.asarray(xt)[0, :d, : h * w].T.reshape(h, w, d)
-        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
-        # CHW affine path: raw * a + b per dim
-        xc4 = build_color4(color, jnp.float32)
-        a, b_aff = _affine_params((e_cm,), xc4, cc, 1e-6)
-        raw = np.concatenate(
-            [np.asarray(e_cm)[0], np.asarray(xc4)[0, :3]], axis=0
-        )  # (D, H, W)
-        folded = (
-            raw * np.asarray(a)[0][:, None, None]
-            + np.asarray(b_aff)[0][:, None, None]
-        ).transpose(1, 2, 0)
-        np.testing.assert_allclose(folded, ref, rtol=2e-4, atol=2e-4)
-    # static is untouched by the fold (identity)
-    cc_s = ClusterConfig()
-    xc4 = build_color4(color, jnp.float32)
-    a1, b1 = _affine_params((e_cm,), xc4, cc_s, 1e-6)
-    assert np.isfinite(np.asarray(a1)).all()

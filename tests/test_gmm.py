@@ -1,9 +1,10 @@
 """GMM EM golden parity + sklearn cross-check (SURVEY.md C9)."""
 
 import numpy as np
+import pytest
 
-from gabor_color_image_segmentation_tpu.models.gmm import gmm_fit
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation.models.gmm import gmm_fit
+from gabor_color_image_segmentation.utils.labels import align_labels
 from golden.cluster import gmm_golden
 
 
@@ -67,8 +68,8 @@ def test_weights_sum_to_one(rng):
 
 
 def test_subsampled_close_to_exact(rng):
-    from gabor_color_image_segmentation_tpu.models.gmm import gmm_predict
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+    from gabor_color_image_segmentation.models.gmm import gmm_predict
+    from gabor_color_image_segmentation.utils.labels import align_labels
 
     x, _ = _blobs(rng, n=3000, k=3, d=6, spread=0.1)
     exact = np.asarray(gmm_predict(x, 3, 20))
@@ -78,7 +79,7 @@ def test_subsampled_close_to_exact(rng):
 
 
 def test_tol_early_exit_matches_golden(rng):
-    """sklearn-style tol early exit: TPU path and golden stop by the same
+    """sklearn-style tol early exit: device path and golden stop by the same
     rule and agree on labels (f32 vs f64 may differ by an iteration near
     convergence — responsibilities there are already stable)."""
     x, _ = _blobs(rng)
@@ -98,131 +99,41 @@ def test_tol_zero_is_fixed_count(rng):
     np.testing.assert_array_equal(np.asarray(ra), np.asarray(rb))
 
 
-def test_fused_em_matches_xla(rng):
-    """Interpret-mode fused EM kernel == XLA gmm_fit labels (same init,
-    same formulas; solve-vs-matmul Mahalanobis within tolerance)."""
-    from gabor_color_image_segmentation_tpu.models.gmm_pallas import gmm_fused_t
-
-    for k, d, tol in [(3, 8, 0.0), (5, 20, 1e-3)]:
-        c = rng.normal(size=(k, d)) * 3.0
-        lab = rng.integers(0, k, 3000)
-        x = (c[lab] + rng.normal(size=(3000, d)) * 0.3).astype(np.float32)
-        l_xla, _, _ = gmm_fit(x, k, 15, 1e-4, 10, tol)
-        l_fused = gmm_fused_t(x, k, 15, 1e-4, 10, tol)
-        agree = (np.asarray(l_xla) == np.asarray(l_fused)).mean()
-        assert agree > 0.999, (k, d, tol, agree)
 
 
-def test_fused_em_batched(rng):
-    """Batched fused EM == per-image XLA gmm_fit."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.gmm_pallas import gmm_fused_t
-
-    xs = []
-    for i in range(3):
-        c = rng.normal(size=(4, 10)) * 3.0
-        lab = rng.integers(0, 4, 2000)
-        xs.append((c[lab] + rng.normal(size=(2000, 10)) * 0.3))
-    xs = np.stack(xs).astype(np.float32)
-    l_fused = gmm_fused_t(jnp.asarray(xs), 4, 12)
-    for i in range(3):
-        l_xla, _, _ = gmm_fit(xs[i], 4, 12)
-        agree = (np.asarray(l_fused[i]) == np.asarray(l_xla)).mean()
-        assert agree > 0.999, (i, agree)
-
-
-def test_fused_em_bf16_close(rng):
-    """bf16-mode fused EM stays close to the f32 XLA solver on separated
-    blobs (production bf16 tolerance contract)."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.gmm_pallas import gmm_fused_t
-
-    c = rng.normal(size=(4, 12)) * 3.0
-    lab = rng.integers(0, 4, 3000)
-    x = (c[lab] + rng.normal(size=(3000, 12)) * 0.2).astype(np.float32)
-    l_xla, _, _ = gmm_fit(x, 4, 12)
-    l_bf16 = gmm_fused_t(jnp.asarray(x, jnp.bfloat16), 4, 12)
-    aligned = align_labels(np.asarray(l_bf16), np.asarray(l_xla))
-    agree = (aligned == np.asarray(l_xla)).mean()
-    assert agree > 0.99, agree
-
-
-def test_pooled_fit_matches_golden_and_xla(rng):
-    """gmm_fit_pool schedule parity: fused kernel (interpret) == XLA mirror
-    == golden mirror, on a spatial grid large enough to actually pool
-    (the level guard skips pooling below 4096 pooled pixels)."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.gmm import gmm_predict
-    from gabor_color_image_segmentation_tpu.models.gmm_pallas import gmm_fused_t
-
-    h, w, d, k = 128, 160, 6, 3
-    # piecewise-constant spatial regions + noise so 2x2 means stay in-cluster
-    region = (
-        (np.arange(h)[:, None] // 32) * 3 + np.arange(w)[None, :] // 40
-    ) % k
-    centers = rng.normal(size=(k, d)) * 3.0
-    x = (
-        centers[region.reshape(-1)]
-        + rng.normal(size=(h * w, d)) * 0.2
+def _patch_image(rng, h, w, d, k):
+    region = (np.arange(h)[:, None] // 16 * 5 + np.arange(w)[None, :] // 20) % k
+    centers = rng.normal(size=(k, d)) * 2.5
+    scale = 0.2 + 0.1 * np.arange(k)[region.reshape(-1), None]
+    return (
+        centers[region.reshape(-1)] + rng.normal(size=(h * w, d)) * scale
     ).astype(np.float32)
 
-    gold, _, _ = gmm_golden(x, k, n_iter=12, hw=(h, w), fit_pool=1)
-    xla = np.asarray(
-        gmm_predict(jnp.asarray(x), k, 12, 1e-4, 1, 0.0, (h, w), 1)
-    )
-    fused = np.asarray(
-        gmm_fused_t(jnp.asarray(x), k, 12, 1e-4, 10, 0.0, (h, w), 1)
-    )
-    ag_x = (align_labels(xla, gold) == gold).mean()
-    ag_f = (align_labels(fused, gold) == gold).mean()
-    assert ag_x > 0.995, f"xla-vs-golden pooled fit {ag_x}"
-    assert ag_f > 0.995, f"fused-vs-golden pooled fit {ag_f}"
-    # the guard must actually have pooled: fitting full-res with the same
-    # iteration budget from the same init gives a different schedule —
-    # sanity-check the pooled run is not silently identical to it
-    full, _, _ = gmm_golden(x, k, n_iter=12)
-    assert gold.shape == full.shape
 
-    # refine_iters: full-res EM passes after the pooled fit — all three
-    # paths mirror the identical schedule
-    gold_r, _, _ = gmm_golden(x, k, n_iter=12, hw=(h, w), fit_pool=1,
-                              refine_iters=2)
-    xla_r = np.asarray(
-        gmm_predict(jnp.asarray(x), k, 12, 1e-4, 1, 0.0, (h, w), 1, 2)
-    )
-    fused_r = np.asarray(
-        gmm_fused_t(jnp.asarray(x), k, 12, 1e-4, 10, 0.0, (h, w), 1, 2)
-    )
-    assert (align_labels(xla_r, gold_r) == gold_r).mean() > 0.995
-    assert (align_labels(fused_r, gold_r) == gold_r).mean() > 0.995
+# (n_iter, tol, fit_pool, refine_iters, h, w)
+GMM_CASES = {
+    "fixed_count": (12, 0.0, 0, 0, 48, 64),
+    "tol": (30, 1e-3, 0, 0, 48, 64),
+    "pooled_fit_refine": (30, 1e-3, 2, 1, 160, 224),
+}
 
 
-def test_fused_prep_matches_standard_loop(rng):
-    """The fused moments->params->factorization loop (TPU production path,
-    forced on here in interpret mode) must agree with the standard
-    per-iteration chain: same schedule, same tol/freeze semantics, f32
-    reduction order only differs in the bias — label agreement ~1."""
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_batch_matches_golden(case, rng):
+    """The vmapped XLA EM (the pipeline's GMM path) against golden per
+    image: fixed count, sklearn tol, and config2's pooled fit + refine."""
+    import jax
     import jax.numpy as jnp
 
-    import gabor_color_image_segmentation_tpu.models.gmm_pallas as gp
+    from gabor_color_image_segmentation.models.gmm import gmm_predict
 
-    x = np.concatenate([
-        rng.normal(size=(500, 6)) + np.array([3, 0, 0, 0, 0, 0.0]),
-        rng.normal(size=(500, 6)) + np.array([0, 3, 0, 0, 0, 0.0]),
-        rng.normal(size=(500, 6)) - 2.0,
-    ]).astype(np.float32)
-    xs = np.stack([x, x[::-1]])
-    base = np.asarray(gp.gmm_fused_t(jnp.asarray(xs), 3, 8, tol=1e-3))
-    old = gp._use_fused_prep
-    try:
-        gp._use_fused_prep = lambda: True
-        gp.gmm_fused_t_xt.clear_cache()
-        fused = np.asarray(gp.gmm_fused_t(jnp.asarray(xs), 3, 8, tol=1e-3))
-    finally:
-        gp._use_fused_prep = old
-        gp.gmm_fused_t_xt.clear_cache()
-    agree = (base == fused).mean()
-    assert agree > 0.999, f"fused-prep vs standard agreement {agree}"
+    n_iter, tol, pool, refine, h, w = GMM_CASES[case]
+    k, d = 4, 6
+    xs = np.stack([_patch_image(rng, h, w, d, k) for _ in range(2)])
+    labels = np.asarray(jax.vmap(
+        lambda x: gmm_predict(x, k, n_iter, 1e-4, 1, tol, (h, w), pool, refine)
+    )(jnp.asarray(xs)))
+    for i in range(2):
+        gold, _, _ = gmm_golden(xs[i], k, n_iter, 1e-4, tol, (h, w), pool, refine)
+        agree = (align_labels(labels[i], gold) == gold).mean()
+        assert agree > 0.999, f"{case} image {i}: agreement {agree}"

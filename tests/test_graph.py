@@ -2,16 +2,16 @@
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
-from gabor_color_image_segmentation_tpu.models.graph import (
+from gabor_color_image_segmentation.metrics.pri import pri_np
+from gabor_color_image_segmentation.models.graph import (
     affinity_matrix,
     mincut_segment,
     ncut_segment,
     spectral_labels,
     superpixel_means,
 )
-from gabor_color_image_segmentation_tpu.models.slic import slic
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation.models.slic import slic
+from gabor_color_image_segmentation.utils.labels import align_labels
 from golden.features import rgb_to_lab_np
 from golden.graph import ncut_golden
 
@@ -78,11 +78,11 @@ def test_ncut_matches_golden(small_mosaic):
     lab = rgb_to_lab_np(rgb)
     feats = (lab / np.abs(lab).max()).astype(np.float32)
     sp = np.asarray(slic(lab, 64, 10.0, 10))
-    from gabor_color_image_segmentation_tpu.models.graph import (
+    from gabor_color_image_segmentation.models.graph import (
         affinity_matrix,
         spectral_labels,
     )
-    from gabor_color_image_segmentation_tpu.models.slic import grid_shape
+    from gabor_color_image_segmentation.models.slic import grid_shape
 
     gh, gw, _ = grid_shape(*lab.shape[:2], 64)
     f, cnts = superpixel_means(
@@ -116,7 +116,7 @@ def test_subspace_eigensolver_matches_eigh(rng):
     """Matmul-only top-k eigensolver spans the same n-cut embedding."""
     from sklearn.metrics import adjusted_rand_score
 
-    from gabor_color_image_segmentation_tpu.models.graph import (
+    from gabor_color_image_segmentation.models.graph import (
         smallest_eigvecs_subspace,
     )
 
@@ -142,69 +142,25 @@ def test_subspace_eigensolver_matches_eigh(rng):
     assert sv.min() > 0.99, sv  # cos(principal angles) ~ 1
 
 
-def test_table_lookup_matches_gather(rng):
-    """Pallas table-lookup kernel (interpret mode) == plain gather."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.ops.lookup import (
-        _lookup_tpu,
-        table_lookup,
-    )
-
-    idx = rng.integers(0, 384, (2, 50000)).astype(np.int32)
-    table = rng.integers(0, 7, (2, 384)).astype(np.int32)
-    ref = np.stack([table[i][idx[i]] for i in range(2)])
-    out = np.asarray(table_lookup(jnp.asarray(idx), jnp.asarray(table)))
-    np.testing.assert_array_equal(out, ref)
-    # force the kernel path (interpret mode off-TPU)
-    out2 = np.asarray(_lookup_tpu(jnp.asarray(idx), jnp.asarray(table)))
-    np.testing.assert_array_equal(out2, ref)
-
-
-def test_fused_moments_match_xla():
-    """graph_pallas.superpixel_moments_fused (interpret mode) == the XLA
-    one-hot-matmul superpixel_means: counts exact, means ~reduction-order."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.graph import (
-        superpixel_means,
-    )
-    from gabor_color_image_segmentation_tpu.models.graph_pallas import (
-        superpixel_moments_fused,
-    )
-
-    rng = np.random.default_rng(3)
-    b, n, d, s = 2, 5000, 13, 40
-    idx = rng.integers(0, s, (b, n)).astype(np.int32)
-    feats = rng.standard_normal((b, n, d)).astype(np.float32)
-    feats = jnp.asarray(feats).astype(jnp.bfloat16)
-    sums, cnts = superpixel_moments_fused(jnp.asarray(idx), feats, s)
-    for i in range(b):
-        m_ref, c_ref = superpixel_means(
-            feats[i].astype(jnp.float32), jnp.asarray(idx[i]), s
-        )
-        np.testing.assert_array_equal(np.asarray(cnts[i]), np.asarray(c_ref))
-        m = np.asarray(sums[i]) / np.maximum(np.asarray(cnts[i]), 1.0)[:, None]
-        np.testing.assert_allclose(m, np.asarray(m_ref), rtol=2e-5, atol=2e-5)
-
-
 def test_resolve_graph_impls_dtype_aware():
-    """fp32 parity mode must resolve "auto" to the exact paths (the fused
-    bf16x3 SLIC kernel capped fp32 golden agreement at 0.9902 — PARITY.md);
-    bf16 production mode must leave "auto" for the backend-aware fast
-    resolution; explicit settings always win."""
-    from gabor_color_image_segmentation_tpu.config import GraphConfig
-    from gabor_color_image_segmentation_tpu.models.graph import (
-        resolve_graph_impls,
-    )
-
-    g = GraphConfig(enabled=True)
-    assert resolve_graph_impls(g, "float32") == ("xla", "eigh")
-    assert resolve_graph_impls(g, "bfloat16") == ("auto", "auto")
+    """The eigensolver resolves in dispatch.py for every dtype: "auto" is
+    the exact dense eigh, explicit settings win, and SLIC has no choice
+    left (the fused SLIC option was removed with its kernel)."""
     import dataclasses
 
-    g_forced = dataclasses.replace(g, slic_impl="fused", eig_method="subspace")
-    assert resolve_graph_impls(g_forced, "float32") == ("fused", "subspace")
+    import pytest
+
+    from gabor_color_image_segmentation.config import GraphConfig, preset
+    from gabor_color_image_segmentation.dispatch import resolve_impls
+
+    g = GraphConfig(enabled=True)
+    for dtype in ("float32", "bfloat16"):
+        cfg = preset("config3").replace(graph=g, dtype=dtype)
+        assert resolve_impls(cfg, "gpu").eig == "eigh"
+        forced = cfg.replace(graph=dataclasses.replace(g, eig_method="subspace"))
+        assert resolve_impls(forced, "gpu").eig == "subspace"
+    with pytest.raises(TypeError):
+        GraphConfig(slic_impl="fused")
 
 
 def test_graph_pool_pipeline_matches_golden(small_mosaic):
@@ -216,10 +172,10 @@ def test_graph_pool_pipeline_matches_golden(small_mosaic):
 
     import jax.numpy as jnp
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.models.pipeline import segment_image
-    from gabor_color_image_segmentation_tpu.models.slic import grid_shape
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.models.pipeline import segment_image
+    from gabor_color_image_segmentation.models.slic import grid_shape
+    from gabor_color_image_segmentation.ops.bank import make_bank
     from golden.graph import (
         enforce_connectivity_golden,
         graph_inputs_golden,
@@ -258,61 +214,3 @@ def test_graph_pool_pipeline_matches_golden(small_mosaic):
     assert pri > 0.7, f"pooled graph PRI {pri}"
 
 
-def test_fused_moments_t_match_xla():
-    """graph_pallas.superpixel_moments_fused_t (the round-5 production
-    transposed-output kernel) == the XLA one-hot-matmul superpixel_means:
-    counts exact, means ~reduction-order. Exercises the S=925-class
-    geometry the remedy preset uses."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.graph import (
-        superpixel_means,
-    )
-    from gabor_color_image_segmentation_tpu.models.graph_pallas import (
-        superpixel_moments_fused_t,
-    )
-
-    rng = np.random.default_rng(4)
-    b, n, d, s = 2, 6000, 39, 925
-    idx = rng.integers(-1, s, (b, n)).astype(np.int32)  # incl. dead pixels
-    feats = rng.standard_normal((b, n, d)).astype(np.float32)
-    feats = jnp.asarray(feats).astype(jnp.bfloat16)
-    sums, cnts = superpixel_moments_fused_t(jnp.asarray(idx), feats, s)
-    for i in range(b):
-        valid = idx[i] >= 0
-        m_ref, c_ref = superpixel_means(
-            feats[i][valid].astype(jnp.float32),
-            jnp.asarray(idx[i][valid]), s,
-        )
-        np.testing.assert_array_equal(np.asarray(cnts[i]), np.asarray(c_ref))
-        m = np.asarray(sums[i]) / np.maximum(np.asarray(cnts[i]), 1.0)[:, None]
-        np.testing.assert_allclose(m, np.asarray(m_ref), rtol=2e-5, atol=2e-5)
-
-
-def test_fused_moments_nhwc_match_xla():
-    """superpixel_moments_fused_nhwc (production: pad-only staging) == the
-    XLA one-hot-matmul superpixel_means."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.graph import (
-        superpixel_means,
-    )
-    from gabor_color_image_segmentation_tpu.models.graph_pallas import (
-        superpixel_moments_fused_nhwc,
-    )
-
-    rng = np.random.default_rng(5)
-    b, n, d, s = 2, 6000, 39, 925
-    idx = rng.integers(-1, s, (b, n)).astype(np.int32)
-    feats = rng.standard_normal((b, n, d)).astype(np.float32)
-    feats = jnp.asarray(feats).astype(jnp.bfloat16)
-    sums, cnts = superpixel_moments_fused_nhwc(jnp.asarray(idx), feats, s)
-    for i in range(b):
-        valid = idx[i] >= 0
-        m_ref, c_ref = superpixel_means(
-            feats[i][valid].astype(jnp.float32),
-            jnp.asarray(idx[i][valid]), s,
-        )
-        np.testing.assert_array_equal(np.asarray(cnts[i]), np.asarray(c_ref))
-        m = np.asarray(sums[i]) / np.maximum(np.asarray(cnts[i]), 1.0)[:, None]
-        np.testing.assert_allclose(m, np.asarray(m_ref), rtol=2e-5, atol=2e-5)

@@ -1,9 +1,10 @@
 """k-means golden parity + sklearn cross-validation (SURVEY.md C8)."""
 
 import numpy as np
+import pytest
 
-from gabor_color_image_segmentation_tpu.models.kmeans import kmeans, maximin_init
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation.models.kmeans import kmeans, maximin_init
+from gabor_color_image_segmentation.utils.labels import align_labels
 from golden.cluster import kmeans_golden, maximin_init_np
 
 
@@ -58,81 +59,23 @@ def test_empty_cluster_keeps_center():
 
 
 def test_subsampled_close_to_exact(rng):
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_fit_assign
+    from gabor_color_image_segmentation.models.kmeans import kmeans_fit_assign
 
     x, _ = _blobs(rng, n=4000, k=4, d=10, spread=0.05)
     exact, _ = kmeans_fit_assign(x, 4, 25)
     import jax.numpy as jnp
 
     fast, _ = kmeans_fit_assign(x, 4, 25, jnp.float32, 4)
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+    from gabor_color_image_segmentation.utils.labels import align_labels
 
     aligned = align_labels(np.asarray(fast), np.asarray(exact))
     assert (aligned == np.asarray(exact)).mean() > 0.99
 
 
-def test_fused_pallas_matches_plain(rng):
-    """Interpret-mode fused Lloyd step == plain XLA kmeans (same math)."""
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import kmeans_fused
-
-    x, _ = _blobs(rng, n=3000, k=4, d=16)
-    l_plain, c_plain = kmeans(x, 4, 15)
-    l_fused, c_fused = kmeans_fused(x, 4, 15)
-    assert (np.asarray(l_plain) == np.asarray(l_fused)).mean() > 0.999
-    np.testing.assert_allclose(np.asarray(c_plain), np.asarray(c_fused), atol=1e-3)
-
-
-def test_fused_pallas_batched(rng):
-    """Batched fused Lloyd == per-image XLA kmeans, image by image."""
-    import jax
-
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import kmeans_fused
-
-    xs = np.stack([_blobs(rng, n=1500, k=3, d=7)[0] for _ in range(3)])
-    l_fused, c_fused = kmeans_fused(jax.numpy.asarray(xs), 3, 12)
-    for i in range(3):
-        l_plain, c_plain = kmeans(xs[i], 3, 12)
-        assert (np.asarray(l_fused[i]) == np.asarray(l_plain)).mean() > 0.999
-        np.testing.assert_allclose(
-            np.asarray(c_fused[i]), np.asarray(c_plain), atol=1e-3
-        )
-
-
-def test_fused_t_matches_plain(rng):
-    """Interpret-mode v3 (transposed-layout) fused Lloyd == plain XLA kmeans."""
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        kmeans_fused_t,
-    )
-
-    x, _ = _blobs(rng, n=3000, k=5, d=16)
-    l_plain, c_plain = kmeans(x, 5, 15)
-    l_fused, c_fused = kmeans_fused_t(x, 5, 15)
-    assert (np.asarray(l_plain) == np.asarray(l_fused)).mean() > 0.999
-    np.testing.assert_allclose(np.asarray(c_plain), np.asarray(c_fused), atol=1e-3)
-
-
-def test_fused_t_batched(rng):
-    """Batched v3 fused Lloyd == per-image XLA kmeans, image by image."""
-    import jax
-
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        kmeans_fused_t,
-    )
-
-    xs = np.stack([_blobs(rng, n=1500, k=3, d=7)[0] for _ in range(3)])
-    l_fused, c_fused = kmeans_fused_t(jax.numpy.asarray(xs), 3, 12)
-    for i in range(3):
-        l_plain, c_plain = kmeans(xs[i], 3, 12)
-        assert (np.asarray(l_fused[i]) == np.asarray(l_plain)).mean() > 0.999
-        np.testing.assert_allclose(
-            np.asarray(c_fused[i]), np.asarray(c_plain), atol=1e-3
-        )
-
-
 def test_multigrid_matches_golden(rng):
     """XLA multigrid schedule (pooled warmup + full-res refine) == the
     golden mirror, label for label."""
-    from gabor_color_image_segmentation_tpu.models.kmeans import (
+    from gabor_color_image_segmentation.models.kmeans import (
         kmeans_multigrid,
         pool2x2,
     )
@@ -151,29 +94,6 @@ def test_multigrid_matches_golden(rng):
     np.testing.assert_allclose(np.asarray(c_ours), c_gold, atol=1e-3)
 
 
-def test_multigrid_fused_matches_xla(rng):
-    """Fused (interpret-mode) multigrid == XLA multigrid on a batch."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_multigrid
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        kmeans_fused_t,
-    )
-
-    h, w, d = 72, 64, 6  # n = 4608 >= the fused-path minimum problem size
-    xs = np.stack([_blobs(rng, n=h * w, k=4, d=d)[0] for _ in range(2)])
-    fused_l, fused_c = kmeans_fused_t(
-        jnp.asarray(xs), 4, 25, jnp.float32, 1, (h, w), 8, 6
-    )
-    for i in range(2):
-        xla_l, xla_c = kmeans_multigrid(xs[i], 4, (h, w), 8, 6)
-        agree = (np.asarray(fused_l[i]) == np.asarray(xla_l)).mean()
-        assert agree == 1.0, f"image {i}: fused-vs-XLA multigrid {agree}"
-        np.testing.assert_allclose(
-            np.asarray(fused_c[i]), np.asarray(xla_c), rtol=2e-5, atol=2e-5
-        )
-
-
 def test_multigrid_quality_close_to_full(rng):
     """Multigrid clusters as well as the full 25-iteration run on SPATIALLY
     COHERENT features (inertia within 2%). The schedule's premise is that
@@ -181,7 +101,7 @@ def test_multigrid_quality_close_to_full(rng):
     is an image-pipeline option keyed on (h, w), not a generic k-means mode
     (on spatially-shuffled blobs the pooled warmup averages unrelated
     points and measured 3x worse inertia at a tight refine cap)."""
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_multigrid
+    from gabor_color_image_segmentation.models.kmeans import kmeans_multigrid
 
     h, w, d, k = 60, 70, 8, 5
     # piecewise-constant feature map (spatial patches) + noise
@@ -203,7 +123,7 @@ def test_multigrid_quality_close_to_full(rng):
 def test_multigrid_levels2_matches_golden(rng):
     """coarse_levels=2 (4x4 coarse grid): XLA == golden, label for label,
     and the 4x4 grid is exactly pool2x2 applied twice in both."""
-    from gabor_color_image_segmentation_tpu.models.kmeans import (
+    from gabor_color_image_segmentation.models.kmeans import (
         kmeans_multigrid,
         pool2x2,
     )
@@ -223,35 +143,10 @@ def test_multigrid_levels2_matches_golden(rng):
     np.testing.assert_allclose(np.asarray(c_ours), c_gold, atol=1e-3)
 
 
-def test_multigrid_levels2_fused_matches_xla(rng):
-    """Fused (interpret-mode) 4x4-coarse multigrid == XLA on a batch —
-    covers the internal repeated _pool_xt chain."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_multigrid
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        kmeans_fused_t,
-    )
-
-    h, w, d = 72, 64, 6
-    xs = np.stack([_blobs(rng, n=h * w, k=4, d=d)[0] for _ in range(2)])
-    fused_l, fused_c = kmeans_fused_t(
-        jnp.asarray(xs), 4, 25, jnp.float32, 1, (h, w), 8, 6, coarse_levels=2
-    )
-    for i in range(2):
-        xla_l, xla_c = kmeans_multigrid(xs[i], 4, (h, w), 8, 6,
-                                        coarse_levels=2)
-        agree = (np.asarray(fused_l[i]) == np.asarray(xla_l)).mean()
-        assert agree == 1.0, f"image {i}: fused-vs-XLA levels-2 {agree}"
-        np.testing.assert_allclose(
-            np.asarray(fused_c[i]), np.asarray(xla_c), rtol=2e-5, atol=2e-5
-        )
-
-
 def test_multigrid_mid_levels_matches_golden(rng):
     """mid_iters > 0 (intermediate 2x2-level passes between the 4x4 warmup
     and full-res refinement): XLA == golden, label for label."""
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_multigrid
+    from gabor_color_image_segmentation.models.kmeans import kmeans_multigrid
     from golden.cluster import kmeans_golden_multigrid
 
     h, w, d = 48, 56, 6
@@ -273,63 +168,54 @@ def test_multigrid_mid_levels_matches_golden(rng):
     assert (np.asarray(c_skip) != np.asarray(c_mid)).any()
 
 
-def test_multigrid_mid_levels_fused_matches_xla(rng):
-    """Fused xt solver with mid_iters == XLA with mid_iters on a batch —
-    covers the intermediate-level pooled-buffer reuse in kmeans_fused_t_xt."""
+
+
+def _patch_image(rng, h, w, d, k, noise=0.3):
+    """Piecewise-constant feature map (spatial patches) + noise, flat."""
+    region = (np.arange(h)[:, None] // 12 * 7 + np.arange(w)[None, :] // 14) % k
+    centers = rng.normal(size=(k, d)) * 3.0
+    return (
+        centers[region.reshape(-1)] + rng.normal(size=(h * w, d)) * noise
+    ).astype(np.float32)
+
+
+# (dtype, init_stride, coarse_iters, refine_iters, coarse_levels, mid_iters)
+BATCH_CASES = {
+    "plain": ("float32", 1, 0, 10, 1, 0),
+    "init_stride": ("float32", 3, 0, 10, 1, 0),
+    "multigrid_l1": ("float32", 1, 8, 6, 1, 0),
+    "multigrid_l2": ("float32", 1, 15, 1, 2, 0),
+    "multigrid_mid": ("float32", 1, 15, 1, 2, 3),
+    "bf16_multigrid_mid": ("bfloat16", 1, 15, 1, 2, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+def test_kmeans_batch_matches_golden(case, rng):
+    """The batched XLA Lloyd (the pipeline's entry) against golden per
+    image, at the schedules the presets use."""
     import jax.numpy as jnp
 
-    from gabor_color_image_segmentation_tpu.models.kmeans import kmeans_multigrid
-    from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
-        kmeans_fused_t,
+    from gabor_color_image_segmentation.models.kmeans import kmeans_batch
+    from golden.cluster import kmeans_golden_multigrid
+
+    dtype, stride, coarse, refine, levels, mid = BATCH_CASES[case]
+    h, w, d, k = 48, 64, 12, 5
+    xs = np.stack([_patch_image(rng, h, w, d, k) for _ in range(3)])
+    dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    labels, _ = kmeans_batch(
+        jnp.asarray(xs), k, 10, dt, 1, stride, (h, w), coarse, refine,
+        levels, mid,
     )
-
-    h, w, d = 72, 64, 6
-    xs = np.stack([_blobs(rng, n=h * w, k=4, d=d)[0] for _ in range(2)])
-    fused_l, fused_c = kmeans_fused_t(
-        jnp.asarray(xs), 4, 25, jnp.float32, 1, (h, w), 8, 2,
-        coarse_levels=2, mid_iters=3,
-    )
-    for i in range(2):
-        xla_l, xla_c = kmeans_multigrid(
-            xs[i], 4, (h, w), 8, 2, coarse_levels=2, mid_iters=3
-        )
-        agree = (np.asarray(fused_l[i]) == np.asarray(xla_l)).mean()
-        assert agree == 1.0, f"image {i}: fused-vs-XLA mid-level {agree}"
-        np.testing.assert_allclose(
-            np.asarray(fused_c[i]), np.asarray(xla_c), rtol=2e-5, atol=2e-5
-        )
-
-
-def test_coarse_fused_all_matches_blocked(rng):
-    """The bf16-gated whole-warmup kernel (_coarse_all_kernel: maximin
-    seeding + ALL coarse Lloyd passes in ONE launch — the config1
-    82.1->90.7 win) vs the blocked launch-per-pass path it replaces,
-    forced via _COARSE_FUSE_BYTES=0 + a jit-cache clear (the gate is read
-    at trace time). Advisor-r2 coverage gap: every other CPU kmeans test
-    runs f32, which never takes the fused-all path. Reduction geometry
-    differs (one m_pad-wide dot vs per-block partials summed in XLA), so
-    centers match to f32-accumulation tolerance, not bitwise."""
-    import jax.numpy as jnp
-
-    import gabor_color_image_segmentation_tpu.models.kmeans_pallas as kp
-
-    k, d, m, b = 5, 11, 2048, 2
-    dp, m_pad, _ = kp.xt_geometry(m, d, jnp.bfloat16)
-    xp = np.zeros((b, dp, m_pad), np.float32)
-    for i in range(b):
-        xb, _ = _blobs(rng, n=m, k=k, d=d)
-        xp[i, :d, :m] = xb.T
-        xp[i, d, :m] = 1.0  # ones-row: update sums double as counts
-    xp = jnp.asarray(xp, jnp.bfloat16)
-
-    fused = np.asarray(kp.kmeans_coarse_centers_xp(xp, k, d, m, 7))
-    old = kp._COARSE_FUSE_BYTES
-    try:
-        kp._COARSE_FUSE_BYTES = 0  # force the blocked launch-per-pass form
-        kp.kmeans_coarse_centers_xp.clear_cache()
-        blocked = np.asarray(kp.kmeans_coarse_centers_xp(xp, k, d, m, 7))
-    finally:
-        kp._COARSE_FUSE_BYTES = old
-        kp.kmeans_coarse_centers_xp.clear_cache()
-    assert fused.shape == blocked.shape == (b, k, d)
-    np.testing.assert_allclose(fused, blocked, rtol=1e-3, atol=1e-3)
+    labels = np.asarray(labels)
+    assert labels.shape == (3, h * w)
+    for i in range(3):
+        x = xs[i]
+        if dtype == "bfloat16":  # golden sees the rounded features
+            x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        if coarse:
+            gold, _ = kmeans_golden_multigrid(x, k, (h, w), coarse, refine, levels, mid)
+        else:
+            gold, _ = kmeans_golden(x, k, 10, stride)
+        agree = (align_labels(labels[i], gold) == gold).mean()
+        assert agree > 0.999, f"{case} image {i}: agreement {agree}"

@@ -3,12 +3,12 @@ L6 region-metric family, §4.2)."""
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.metrics.pri import (
+from gabor_color_image_segmentation.metrics.pri import (
     pri_np,
     rand_index_jax,
     rand_index_np,
 )
-from gabor_color_image_segmentation_tpu.metrics.region import (
+from gabor_color_image_segmentation.metrics.region import (
     covering_jax,
     covering_np,
     mean_covering_np,

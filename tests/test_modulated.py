@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from gabor_color_image_segmentation_tpu.config import BankConfig
-from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-from gabor_color_image_segmentation_tpu.ops.features import gabor_energies
-from gabor_color_image_segmentation_tpu.ops.modulated import gabor_energies_mod
+from gabor_color_image_segmentation.config import BankConfig
+from gabor_color_image_segmentation.ops.bank import make_bank
+from gabor_color_image_segmentation.ops.features import gabor_energies
+from gabor_color_image_segmentation.ops.modulated import gabor_energies_mod
 from golden.features import gabor_energies_golden, rgb_to_lab_np
 
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gabor_color_image_segmentation_tpu.utils import native
+from gabor_color_image_segmentation.utils import native
 
 
 def test_builds_and_loads():
@@ -10,7 +10,7 @@ def test_builds_and_loads():
 
 
 def test_matches_python_fallback(rng):
-    from gabor_color_image_segmentation_tpu.metrics import boundary
+    from gabor_color_image_segmentation.metrics import boundary
 
     pred = rng.integers(0, 60, (200, 2)).astype(np.int32)
     gt = rng.integers(0, 60, (180, 2)).astype(np.int32)
@@ -18,7 +18,7 @@ def test_matches_python_fallback(rng):
     n_pm, n_gm = native.greedy_match_native(pred, gt, tol)
 
     # force the python fallback by monkeypatching
-    import gabor_color_image_segmentation_tpu.utils.native as nat
+    import gabor_color_image_segmentation.utils.native as nat
 
     real = nat.greedy_match_native
     try:

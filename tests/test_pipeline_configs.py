@@ -6,14 +6,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-from gabor_color_image_segmentation_tpu.config import GraphConfig, preset
-from gabor_color_image_segmentation_tpu.data.synthetic import synthetic_mosaic
-from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
-from gabor_color_image_segmentation_tpu.models.pipeline import (
+from gabor_color_image_segmentation.config import GraphConfig, preset
+from gabor_color_image_segmentation.data.synthetic import synthetic_mosaic
+from gabor_color_image_segmentation.metrics.pri import pri_np
+from gabor_color_image_segmentation.models.pipeline import (
     segment_batch,
     segment_images,
 )
-from gabor_color_image_segmentation_tpu.ops.bank import make_bank
+from gabor_color_image_segmentation.ops.bank import make_bank
 
 
 @pytest.fixture(scope="module")
@@ -76,30 +76,9 @@ def test_mincut_variant(batch2):
     assert min(pris) > 0.75, pris
 
 
-def test_transposed_fast_path_matches_regular(batch2):
-    """Labels-only transposed pipeline (channel-major energies -> xt ->
-    fused solver) == regular NHWC path, modulo float-tolerance tie flips."""
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _segment_batch_transposed,
-    )
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    imgs, _ = batch2
-    cfg = preset("config0").replace(batch_size=2, feature_impl="pallas")
-    bank = make_bank(cfg.bank)
-    ref, _ = segment_batch(imgs, cfg, bank)
-    fast = _segment_batch_transposed(np.asarray(imgs), cfg, bank)
-    ref, fast = np.asarray(ref), np.asarray(fast)
-    assert fast.shape == ref.shape
-    for i in range(ref.shape[0]):
-        aligned = align_labels(fast[i], ref[i])
-        agree = (aligned == ref[i]).mean()
-        assert agree > 0.999, agree
-
-
 def test_segment_batch_without_features(batch2):
-    """with_features=False returns (labels, None); labels match the default
-    path on the CPU backend (fast path is TPU-gated)."""
+    """with_features=False returns (labels, None); labels match the
+    feature-returning path."""
     imgs, _ = batch2
     cfg = preset("config0").replace(batch_size=2)
     bank = make_bank(cfg.bank)
@@ -109,123 +88,14 @@ def test_segment_batch_without_features(batch2):
     assert (np.asarray(lab) == np.asarray(ref)).all()
 
 
-def test_transposed_fast_path_gmm(batch2):
-    """Transposed pipeline with GMM clustering == regular path labels."""
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _segment_batch_transposed,
-    )
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    imgs, _ = batch2
-    cfg = preset("config2").replace(batch_size=2, feature_impl="pallas")
-    cfg = cfg.replace(cluster=dataclasses.replace(cfg.cluster, n_iter=8))
-    bank = make_bank(cfg.bank)
-    ref, _ = segment_batch(imgs, cfg, bank)
-    fast = _segment_batch_transposed(np.asarray(imgs), cfg, bank)
-    ref, fast = np.asarray(ref), np.asarray(fast)
-    for i in range(ref.shape[0]):
-        aligned = align_labels(fast[i], ref[i])
-        agree = (aligned == ref[i]).mean()
-        assert agree > 0.99, agree
-
-
-def test_transposed_fast_path_multigrid_levels2(batch2):
-    """config1-shaped multigrid schedule at coarse_levels=2 (4x4 coarse
-    grid): the CHW production path == the regular NHWC path running the
-    identical schedule. Exercises the pooled-twin -> _pool2x2_cm ->
-    assemble_xp -> coarse_centers_xp -> chw-refine chain."""
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _segment_batch_transposed,
-    )
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    imgs, _ = batch2
-    cfg = preset("config0").replace(batch_size=2, feature_impl="pallas")
-    cfg = cfg.replace(
-        cluster=dataclasses.replace(
-            cfg.cluster, coarse_iters=6, refine_iters=4, coarse_levels=2
-        )
-    )
-    bank = make_bank(cfg.bank)
-    ref, _ = segment_batch(imgs, cfg, bank)
-    fast = _segment_batch_transposed(np.asarray(imgs), cfg, bank)
-    ref, fast = np.asarray(ref), np.asarray(fast)
-    assert fast.shape == ref.shape
-    for i in range(ref.shape[0]):
-        aligned = align_labels(fast[i], ref[i])
-        agree = (aligned == ref[i]).mean()
-        assert agree > 0.99, agree
-
-
-def test_transposed_fast_path_mid_iters(batch2):
-    """config1-shaped schedule with intermediate-level passes (mid_iters>0):
-    the CHW production path (2x2-twin mid passes between the 4x4 xp warmup
-    and the full-res refinement) == the regular NHWC path running the
-    identical schedule through kmeans_batch."""
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _segment_batch_transposed,
-    )
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    imgs, _ = batch2
-    cfg = preset("config0").replace(batch_size=2, feature_impl="pallas")
-    cfg = cfg.replace(
-        cluster=dataclasses.replace(
-            cfg.cluster, coarse_iters=6, refine_iters=1, coarse_levels=2,
-            mid_iters=3,
-        )
-    )
-    bank = make_bank(cfg.bank)
-    ref, _ = segment_batch(imgs, cfg, bank)
-    fast = _segment_batch_transposed(np.asarray(imgs), cfg, bank)
-    ref, fast = np.asarray(ref), np.asarray(fast)
-    assert fast.shape == ref.shape
-    for i in range(ref.shape[0]):
-        aligned = align_labels(fast[i], ref[i])
-        agree = (aligned == ref[i]).mean()
-        assert agree > 0.99, agree
-
-
-def test_transposed_gmm_pooled_fit_matches_regular():
-    """gmm_fit_pool through the transposed pipeline (assembly-side matmul
-    pooling + fit_xp) == the regular NHWC path (internal _pool_xt chain) —
-    the two build the pooled fit buffer by different routes that are equal
-    in real arithmetic. Image large enough to clear the 4096-pixel level
-    guard."""
-    import dataclasses as _dc
-
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
-        _segment_batch_transposed,
-    )
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    imgs = np.stack(
-        [synthetic_mosaic(h=160, w=224, n_regions=4, seed=40 + i)[0]
-         for i in range(2)]
-    )
-    cfg = preset("config2").replace(batch_size=2, feature_impl="pallas")
-    cfg = cfg.replace(
-        cluster=_dc.replace(cfg.cluster, n_iter=8, gmm_fit_pool=1,
-                            gmm_refine_iters=1)
-    )
-    bank = make_bank(cfg.bank)
-    ref, _ = segment_batch(imgs, cfg, bank)
-    fast = _segment_batch_transposed(np.asarray(imgs), cfg, bank)
-    ref, fast = np.asarray(ref), np.asarray(fast)
-    for i in range(2):
-        agree = (align_labels(fast[i], ref[i]) == ref[i]).mean()
-        assert agree > 0.99, agree
-
-
 @pytest.mark.parametrize(
     "preset_name,hw",
     [("config0", (97, 131)), ("config3", (60, 200))],
 )
 def test_off_nominal_image_sizes(preset_name, hw):
     """Odd and wide-rectangular shapes run end-to-end through both pipeline
-    families (Pallas kernels pad / fall back via their eligibility gates;
-    nothing in the contract requires 481x321)."""
-    from gabor_color_image_segmentation_tpu.models.pipeline import segment_image
+    families (nothing in the contract requires 481x321)."""
+    from gabor_color_image_segmentation.models.pipeline import segment_image
 
     h, w = hw
     rgb, _ = synthetic_mosaic(h=h, w=w, n_regions=4, seed=3)

@@ -4,10 +4,10 @@ full pipeline on a synthetic mosaic, golden parity + PRI quality floor."""
 import numpy as np
 import pytest
 
-from gabor_color_image_segmentation_tpu.config import preset
-from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
-from gabor_color_image_segmentation_tpu.models.pipeline import segment_image
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation.config import preset
+from gabor_color_image_segmentation.metrics.pri import pri_np
+from gabor_color_image_segmentation.models.pipeline import segment_image
+from gabor_color_image_segmentation.utils.labels import align_labels
 from golden.cluster import kmeans_golden
 from golden.features import features_golden
 
@@ -62,23 +62,22 @@ def test_config0_matches_golden(small_mosaic, cfg):
 
 
 def test_gabor_features_earn_their_cost():
-    """VERDICT r2 missing #4 headline: on the texture-ONLY split (regions
+    """Headline of the feature ablation: on the texture-ONLY split (regions
     share one base color and differ only in texture orientation/frequency),
     the full Gabor+color features with coherence cue weighting beat
     color-only features decisively — the filter bank carries the signal.
-    Small 3-image version of experiments/exp_feature_ablation.py (12-image
-    table in BASELINE.md)."""
+    Small 3-image version of the 12-image feature-ablation study."""
     import dataclasses
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.data.synthetic import (
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.data.synthetic import (
         synthetic_mosaic,
     )
-    from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
+    from gabor_color_image_segmentation.metrics.pri import pri_np
+    from gabor_color_image_segmentation.models.pipeline import (
         segment_images,
     )
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
+    from gabor_color_image_segmentation.ops.bank import make_bank
 
     imgs, gts = [], []
     for i in range(3):

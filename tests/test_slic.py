@@ -1,8 +1,9 @@
 """SLIC superpixels: golden parity + structural properties (SURVEY.md C10)."""
 
 import numpy as np
+import pytest
 
-from gabor_color_image_segmentation_tpu.models.slic import (
+from gabor_color_image_segmentation.models.slic import (
     enforce_connectivity,
     grid_shape,
     slic,
@@ -64,7 +65,7 @@ def test_enforce_connectivity():
 
 def test_device_connectivity_matches_golden(small_mosaic):
     """enforce_connectivity_device == the numpy mirror, bit for bit."""
-    from gabor_color_image_segmentation_tpu.models.slic import (
+    from gabor_color_image_segmentation.models.slic import (
         enforce_connectivity_device,
     )
     from golden.graph import enforce_connectivity_golden
@@ -81,7 +82,7 @@ def test_device_connectivity_matches_golden(small_mosaic):
 def test_device_connectivity_crafted():
     """cv2 semantics: >= min_size components survive (renumbered in raster
     order), smaller fragments absorbed; output 4-connected."""
-    from gabor_color_image_segmentation_tpu.models.slic import (
+    from gabor_color_image_segmentation.models.slic import (
         enforce_connectivity_device,
     )
     from scipy import ndimage
@@ -119,11 +120,11 @@ def test_graph_path_superpixels_are_connected(small_mosaic):
     import jax.numpy as jnp
     from scipy import ndimage
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.models.slic import (
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.models.slic import (
         enforce_connectivity_device,
+        slic_batch,
     )
-    from gabor_color_image_segmentation_tpu.models.slic_pallas import slic_batch
 
     rgb, _ = small_mosaic
     lab = rgb_to_lab_np(rgb)
@@ -133,7 +134,7 @@ def test_graph_path_superpixels_are_connected(small_mosaic):
     # the exact sequence graph_segment_batch runs before superpixel_means
     sp = slic_batch(
         jnp.asarray(lab)[None], g.n_superpixels, g.slic_compactness,
-        g.slic_iters, g.slic_impl,
+        g.slic_iters,
     )
     raw = np.asarray(sp)[0]
     sp = np.asarray(enforce_connectivity_device(sp, gh * gw))[0]
@@ -148,253 +149,64 @@ def test_graph_path_superpixels_are_connected(small_mosaic):
     assert (sp == enforce_connectivity_golden(raw, n_sp=gh * gw)).all()
 
 
-def test_fused_banded_matches_plain(small_mosaic):
-    """Interpret-mode banded Pallas SLIC vs plain XLA SLIC.
 
-    The kernel's scores are bf16x3 (two-bf16 operand split, ~2^-16 relative
-    — Mosaic supports neither HIGH nor f32 dot algorithms), so pixels that
-    are near-equidistant between two superpixels may flip; everything else
-    is identical. Per-pixel agreement lands ~0.995; the downstream
-    region-level test below is the functional gate."""
+
+@pytest.mark.parametrize("n_sp", [64, 588, 800, 900])
+def test_slic_batch_matches_golden(n_sp, small_mosaic, tiny_mosaic):
+    """The batched exact-f32 XLA SLIC (the graph stage's entry) against
+    golden per image, at the superpixel counts the graph configs use."""
     import jax.numpy as jnp
 
-    from gabor_color_image_segmentation_tpu.models.slic_pallas import (
-        slic_fused,
-        slic_fused_eligible,
-    )
+    from gabor_color_image_segmentation.models.slic import slic_batch
 
-    rgb, _ = small_mosaic
-    lab = rgb_to_lab_np(rgb)
-    h, w = lab.shape[:2]
-    assert slic_fused_eligible(h, w, 64)
-    plain = np.asarray(slic(lab, 64, 10.0, 5))
-    fused = np.asarray(slic_fused(jnp.asarray(lab)[None], 64, 10.0, 5))[0]
-    agree = (plain == fused).mean()
-    assert agree > 0.99, f"fused SLIC agreement {agree}"
-
-
-def test_fused_all_matches_banded_loop(small_mosaic):
-    """The whole-image all-iterations SLIC kernel must match the
-    launch-per-pass banded loop it replaces, BITWISE — on the w5 plan,
-    whose band order and matmul chunking are identical to the banded loop
-    (the cell-aligned w3 plan changes the psum accumulation order and is
-    held to the agreement standard by test_w3_agreement instead; advisor
-    r3 low #2 — this test now pins the plan it actually contracts)."""
-    import jax.numpy as jnp
-
-    import gabor_color_image_segmentation_tpu.models.slic_pallas as sp
-
-    rgb, _ = small_mosaic
-    lab = jnp.asarray(rgb_to_lab_np(rgb))[None]
-    fused_all = np.asarray(sp.slic_fused(lab, 64, 10.0, 5, "w5"))
-    old = sp._SLIC_FUSE_BYTES
-    try:
-        sp._SLIC_FUSE_BYTES = 0  # force the banded launch-per-pass form
-        # the gate is read at TRACE time: without clearing the jit cache the
-        # second call would reuse the first call's executable and compare
-        # the kernel against itself
-        sp.slic_fused.clear_cache()
-        # the banded loop is plan-free (its band order IS w5's); an
-        # explicit plan on this path now raises (advisor r4 low #2)
-        banded = np.asarray(sp.slic_fused(lab, 64, 10.0, 5, "auto"))
-    finally:
-        sp._SLIC_FUSE_BYTES = old
-        sp.slic_fused.clear_cache()
-    assert (fused_all == banded).all()
-
-
-def test_w3_agreement(small_mosaic):
-    """Cell-aligned w3 fused-all vs the 5-row fused-all plan: same
-    9-candidate rule and scores, psum accumulation order differs — labels
-    must agree (exactly here; the production gate is the >=0.999 agreement
-    + PRI parity standard, exp_slic_w3.py measures it at config3 scale).
-    Plan selection is a per-call static argument — no global flips, no
-    cache clearing (advisor r3 low #4)."""
-    import jax.numpy as jnp
-
-    import gabor_color_image_segmentation_tpu.models.slic_pallas as sp
-
-    rgb, _ = small_mosaic
-    lab = jnp.asarray(rgb_to_lab_np(rgb))[None]
-    w3 = np.asarray(sp.slic_fused(lab, 64, 10.0, 5, "w3"))
-    w5 = np.asarray(sp.slic_fused(lab, 64, 10.0, 5, "w5"))
-    agree = (w3 == w5).mean()
-    assert agree >= 0.999, f"w3 vs w5 agreement {agree}"
-    # the production default must be one of the two measured plans
-    # the production plan is w3 — an EXPLICIT expectation, not a
-    # reflection of the module global: flipping the default must fail
-    # this test loudly so the flip is a recorded, measured decision
-    # (VERDICT r4 weak #5)
-    assert sp._W3_FUSED is True, "production SLIC plan changed from w3"
-    auto = np.asarray(sp.slic_fused(lab, 64, 10.0, 5))
-    assert (auto == w3).all()
-
-
-def test_fused_banded_downstream_regions(small_mosaic):
-    """Boundary-pixel flips from the fused kernel must not move the final
-    n-cut regions: superpixel means average ~hundreds of pixels."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.graph import (
-        ncut_from_superpixels,
-    )
-    from gabor_color_image_segmentation_tpu.models.slic import grid_shape
-    from gabor_color_image_segmentation_tpu.models.slic_pallas import slic_fused
-
-    rgb, _ = small_mosaic
-    lab = rgb_to_lab_np(rgb)
-    h, w = lab.shape[:2]
-    feats = jnp.asarray(lab, jnp.float32)  # color features suffice here
-    gh, gw, _ = grid_shape(h, w, 64)
-    plain_sp = slic(lab, 64, 10.0, 5)
-    fused_sp = slic_fused(jnp.asarray(lab)[None], 64, 10.0, 5)[0]
-    a = np.asarray(ncut_from_superpixels(feats, plain_sp, gh * gw, 4, None, "eigh"))
-    b = np.asarray(ncut_from_superpixels(feats, fused_sp, gh * gw, 4, None, "eigh"))
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
-
-    aligned = align_labels(b.reshape(-1), a.reshape(-1)).reshape(a.shape)
-    agree = (aligned == a).mean()
-    assert agree > 0.995, f"downstream region agreement {agree}"
-
-
-def test_fused_banded_batched(tiny_mosaic, small_mosaic):
-    """Batched fused SLIC matches per-image XLA SLIC on each image."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.slic_pallas import slic_fused
-
-    rgb, _ = small_mosaic
-    lab = rgb_to_lab_np(rgb)
-    batch = np.stack([lab, lab[:, ::-1]])
-    fused = np.asarray(slic_fused(jnp.asarray(batch), 48, 10.0, 4))
+    rgb = small_mosaic[0]
+    labs = np.stack([
+        rgb_to_lab_np(rgb),
+        rgb_to_lab_np(np.ascontiguousarray(rgb[::-1, ::-1])),
+    ])
+    out = np.asarray(slic_batch(jnp.asarray(labs), n_sp, 5.0, 10))
+    gh, gw, _ = grid_shape(*labs.shape[1:3], n_sp)
     for i in range(2):
-        plain = np.asarray(slic(batch[i], 48, 10.0, 4))
-        agree = (plain == fused[i]).mean()
-        # bf16x3 scores: boundary-equidistant pixels may flip (see above)
-        assert agree > 0.99, f"image {i} agreement {agree}"
+        gold = slic_golden(labs[i], n_sp, 5.0, 10)
+        agree = (out[i] == gold).mean()
+        assert agree > 0.999, f"n_sp={n_sp} image {i}: agreement {agree}"
+        assert out[i].max() < gh * gw
 
 
-def test_fused_connectivity_bit_equal_random():
-    """connectivity_pallas (interpret mode on CPU) == the XLA device pass,
-    bit for bit, on heavily fragmented random labels — the survivor rule
-    (capped BFS subtree count, connectivity_pallas.py docstring) must make
-    the identical keep/absorb decisions as the true-counts histogram."""
+def _blocky(rng, h, w, cells):
+    """Random label map of small blocks: many fragments of every label."""
+    coarse = rng.integers(0, cells, size=(h // 3 + 1, w // 3 + 1))
+    return np.repeat(np.repeat(coarse, 3, 0), 3, 1)[:h, :w].astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["noise", "blocks", "slic900"])
+def test_connectivity_batch_matches_golden(kind, small_mosaic):
+    """enforce_connectivity_device over a batch == the numpy mirror per
+    image, bit for bit: pixel noise (every component below min_size — the
+    guarded degenerate case), blocky fragments, and real SLIC output at
+    config3's superpixel count."""
     import jax.numpy as jnp
 
-    from gabor_color_image_segmentation_tpu.models.connectivity_pallas import (
-        enforce_connectivity_fused,
-    )
-    from gabor_color_image_segmentation_tpu.models.slic import (
+    from gabor_color_image_segmentation.models.slic import (
         enforce_connectivity_device,
     )
+    from golden.graph import enforce_connectivity_golden
 
-    rng = np.random.default_rng(7)
-    for h, w, n_sp, min_size in [(48, 64, 12, 16), (40, 56, 9, 10)]:
-        base = rng.integers(0, n_sp, ((h + 7) // 8, (w + 7) // 8))
-        lab = np.kron(base, np.ones((8, 8), int))[:h, :w]
-        noise = rng.integers(0, n_sp, (h, w))
-        lab = np.where(rng.random((h, w)) < 0.25, noise, lab)
-        lab = np.stack([lab, lab[:, ::-1]]).astype(np.int32)
-        a = np.asarray(enforce_connectivity_device(jnp.asarray(lab), n_sp, min_size))
-        b = np.asarray(enforce_connectivity_fused(jnp.asarray(lab), n_sp, min_size))
-        assert (a == b).all(), f"{h}x{w}: {(a != b).sum()} differing pixels"
-
-
-def test_fused_connectivity_on_slic_output(small_mosaic):
-    """Same bit-equality on a real SLIC label map (golden-path input),
-    including the default min_size/s_max derivation."""
-    import jax.numpy as jnp
-
-    from gabor_color_image_segmentation_tpu.models.connectivity_pallas import (
-        enforce_connectivity_fused,
-    )
-    from gabor_color_image_segmentation_tpu.models.slic import (
-        enforce_connectivity_device,
-        grid_shape,
-    )
-
-    rgb, _ = small_mosaic
-    lab = rgb_to_lab_np(rgb)
-    h, w = lab.shape[:2]
-    sp = np.asarray(slic(lab, 48, 10.0, 5))[None].astype(np.int32)
-    gh, gw, _ = grid_shape(h, w, 48)
-    a = np.asarray(enforce_connectivity_device(jnp.asarray(sp), gh * gw))
-    b = np.asarray(enforce_connectivity_fused(jnp.asarray(sp), gh * gw))
-    assert (a == b).all(), f"{(a != b).sum()} differing pixels"
-
-
-def test_fused_w_rows4_plan(small_mosaic):
-    """Shapes where 5 grid rows exceed the 128-lane window (config4's
-    pooled 4K grid: gh=15, gw=27) fall back to a 4-row window with bands
-    shorter than one cell height — same exact 9-candidate rule, so
-    agreement with the exact XLA path matches the usual bf16x3 level."""
-    import jax.numpy as jnp
-
-    import gabor_color_image_segmentation_tpu.models.slic_pallas as sp
-
-    # config3's plan is unchanged by the w_rows=4 extension
-    p = sp._plan(321, 481, 400)
-    assert (p["w_rows"], p["band_rows"]) == (5, 32)
-    # config4's pooled grid becomes eligible (was None before the extension)
-    p2 = sp._plan(540, 960, 400)
-    assert p2 is not None and p2["w_rows"] == 4 and p2["gw"] == 27
-
-    rgb, _ = small_mosaic  # 96 x 128; n_sp=588 -> gw=28: 5 rows > 128 lanes
-    lab = rgb_to_lab_np(rgb)
-    p3 = sp._plan(96, 128, 588)
-    assert p3 is not None and p3["w_rows"] == 4
-    plain = np.asarray(slic(jnp.asarray(lab), 588, 10.0, 5))
-    fused = np.asarray(sp.slic_fused(jnp.asarray(lab)[None], 588, 10.0, 5))[0]
-    agree = (plain == fused).mean()
-    assert agree > 0.99, f"w_rows=4 fused SLIC agreement {agree}"
-
-
-def test_explicit_plan_on_banded_path_raises(small_mosaic):
-    """An explicit w3/w5 plan is only honored by the whole-image fused
-    launch; the banded fall-through must reject it rather than silently
-    run plan-free (advisor r4 low #2)."""
-    import jax.numpy as jnp
-    import pytest
-
-    import gabor_color_image_segmentation_tpu.models.slic_pallas as sp
-
-    rgb, _ = small_mosaic
-    lab = jnp.asarray(rgb_to_lab_np(rgb))[None]
-    with pytest.raises(ValueError, match="unknown SLIC plan"):
-        sp.slic_fused(lab, 64, 10.0, 5, "w4")
-    old = sp._SLIC_FUSE_BYTES
-    try:
-        sp._SLIC_FUSE_BYTES = 0  # force the banded launch-per-pass form
-        sp.slic_fused.clear_cache()
-        with pytest.raises(ValueError, match="plan-free"):
-            sp.slic_fused(lab, 64, 10.0, 5, "w5")
-    finally:
-        sp._SLIC_FUSE_BYTES = old
-        sp.slic_fused.clear_cache()
-
-
-def test_w3_only_plan_geometry(small_mosaic):
-    """Round-5 config3 geometry (900 superpixels at 321x481 -> gw=37):
-    5*gw and 4*gw exceed the 128-lane window, so the banded/w5 plans are
-    ineligible — the cell-aligned w3 whole-image kernel must still run
-    (w3-only plan, w_rows=0) and match plain XLA SLIC at the usual bf16x3
-    agreement standard; explicit plan='w5' must raise."""
-    import jax.numpy as jnp
-    import pytest
-
-    import gabor_color_image_segmentation_tpu.models.slic_pallas as sp
-
-    rgb, _ = small_mosaic
-    lab = rgb_to_lab_np(rgb)
-    bp = sp._plan(*lab.shape[:2], 800)
-    assert bp is not None and bp["w_rows"] == 0  # w3-only geometry
-    assert sp.slic_fused_eligible(*lab.shape[:2], 800)
-    plain = np.asarray(slic(lab, 800, 5.0, 5))
-    fused = np.asarray(sp.slic_fused(jnp.asarray(lab)[None], 800, 5.0, 5))[0]
-    agree = (plain == fused).mean()
-    assert agree > 0.98, f"w3-only fused agreement {agree}"
-    with pytest.raises(ValueError, match="w3-only"):
-        sp.slic_fused(jnp.asarray(lab)[None], 800, 5.0, 5, "w5")
-    # the production config3 geometry itself is w3-only and stays fused
-    assert sp._plan(321, 481, 900)["w_rows"] == 0
-    assert sp.slic_fused_eligible(321, 481, 900)
+    rng = np.random.default_rng(11)
+    h, w = 96, 128
+    if kind == "noise":
+        sp = rng.integers(0, 64, size=(2, h, w)).astype(np.int32)
+        n_sp = 64
+    elif kind == "blocks":
+        sp = np.stack([_blocky(rng, h, w, 48) for _ in range(2)])
+        n_sp = 48
+    else:
+        lab = rgb_to_lab_np(small_mosaic[0])
+        gh, gw, _ = grid_shape(h, w, 900)
+        n_sp = gh * gw
+        one = np.asarray(slic(lab, 900, 5.0, 10))
+        sp = np.stack([one, one[::-1].copy()])
+    dev = np.asarray(enforce_connectivity_device(jnp.asarray(sp), n_sp))
+    for i in range(2):
+        gold = enforce_connectivity_golden(sp[i], n_sp=n_sp)
+        assert (dev[i] == gold).all(), f"{kind} image {i}"

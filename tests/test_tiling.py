@@ -8,12 +8,12 @@ jax = pytest.importorskip("jax")
 
 from jax.sharding import Mesh
 
-from gabor_color_image_segmentation_tpu.config import BankConfig, preset
-from gabor_color_image_segmentation_tpu.data.synthetic import synthetic_mosaic
-from gabor_color_image_segmentation_tpu.models.pipeline import segment_image
-from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-from gabor_color_image_segmentation_tpu.parallel.tiling import segment_tiled
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation.config import BankConfig, preset
+from gabor_color_image_segmentation.data.synthetic import synthetic_mosaic
+from gabor_color_image_segmentation.models.pipeline import segment_image
+from gabor_color_image_segmentation.ops.bank import make_bank
+from gabor_color_image_segmentation.parallel.tiling import segment_tiled
+from gabor_color_image_segmentation.utils.labels import align_labels
 
 
 @pytest.fixture(scope="module")
@@ -48,13 +48,13 @@ def test_strip_energies_border_exact(mesh8):
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from gabor_color_image_segmentation_tpu.models.pipeline import _color_transform
-    from gabor_color_image_segmentation_tpu.ops.modulated import (
+    from gabor_color_image_segmentation.models.pipeline import _color_transform
+    from gabor_color_image_segmentation.ops.modulated import (
         gabor_energies_mod,
         modulated_group_magnitudes,
         smooth_group_magnitudes,
     )
-    from gabor_color_image_segmentation_tpu.parallel.tiling import (
+    from gabor_color_image_segmentation.parallel.tiling import (
         _halo_exchange_rows,
     )
 
@@ -126,7 +126,7 @@ def test_tiled_equals_untiled(mesh8):
     aligned = align_labels(tiled, untiled)
     agree = (aligned == untiled).mean()
     # tightened from 0.999 after the flip decomposition (PARITY.md: zero
-    # flips on every measured seed; exp_tiled_parity.py)
+    # flips on every measured seed)
     assert agree > 0.9999, f"tiled-vs-untiled agreement {agree}"
 
 
@@ -148,7 +148,7 @@ def test_2d_mesh_batch_space():
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs 8 fake devices")
-    from gabor_color_image_segmentation_tpu.parallel.tiling import segment_tiled_batch
+    from gabor_color_image_segmentation.parallel.tiling import segment_tiled_batch
 
     mesh = Mesh(np.asarray(devs[:8]).reshape(4, 2), ("batch", "space"))
     cfg = _small_cfg()
@@ -168,7 +168,7 @@ def test_2d_mesh_batch_space():
     # (SURVEY.md §7.4.1). The guarantee is: most images land in the SAME
     # basin (pixel-exact), and every image matches the untiled run's QUALITY
     # against ground truth.
-    from gabor_color_image_segmentation_tpu.metrics.pri import pri_np
+    from gabor_color_image_segmentation.metrics.pri import pri_np
 
     exact = 0
     for i in range(4):
@@ -190,11 +190,11 @@ def test_intra_chip_spatial_tiling_exact(small_mosaic):
     import jax.numpy as jnp
     import numpy as np
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.models.pipeline import compute_features
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-    from gabor_color_image_segmentation_tpu.ops.modulated import gabor_energies_mod
-    from gabor_color_image_segmentation_tpu.ops.tiled import gabor_energies_tiled
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.models.pipeline import compute_features
+    from gabor_color_image_segmentation.ops.bank import make_bank
+    from gabor_color_image_segmentation.ops.modulated import gabor_energies_mod
+    from gabor_color_image_segmentation.ops.tiled import gabor_energies_tiled
     from golden.features import rgb_to_lab_np
 
     rgb, _ = small_mosaic  # 96 x 128
@@ -228,7 +228,7 @@ def test_intra_chip_spatial_tiling_exact(small_mosaic):
 def test_dp_sharded_labels_only(mesh8):
     """segment_batch_sharded(with_features=False) == feature-returning path
     on the fake 8-device mesh; features output is None."""
-    from gabor_color_image_segmentation_tpu.parallel.sharding import (
+    from gabor_color_image_segmentation.parallel.sharding import (
         make_mesh,
         segment_batch_sharded,
     )
@@ -247,6 +247,32 @@ def test_dp_sharded_labels_only(mesh8):
     assert (np.asarray(l_full) == np.asarray(l_only)).all()
 
 
+def test_sharded_fns_are_built_once(mesh8):
+    """Repeated calls reuse one jitted program: no retrace or recompile per
+    call on the data-parallel or the batch x space path."""
+    from gabor_color_image_segmentation.parallel.sharding import (
+        make_mesh,
+        make_sharded_fn,
+        segment_batch_sharded,
+    )
+    from gabor_color_image_segmentation.parallel.tiling import tiled_batch_fn
+
+    cfg = _small_cfg().replace(batch_size=8)
+    bank = make_bank(cfg.bank)
+    mesh = make_mesh(8)
+    fn = make_sharded_fn(cfg, bank, mesh, False)
+    assert make_sharded_fn(cfg, bank, make_mesh(8), False) is fn
+    imgs = np.stack(
+        [synthetic_mosaic(32, 32, n_regions=2, seed=i)[0] for i in range(8)]
+    )
+    first, _ = segment_batch_sharded(imgs, cfg, bank, mesh, False)
+    again, _ = segment_batch_sharded(imgs, cfg, bank, mesh, False)
+    assert fn._cache_size() == 1
+    assert (np.asarray(first) == np.asarray(again)).all()
+    mesh2 = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("batch", "space"))
+    assert tiled_batch_fn(cfg, bank, mesh2) is tiled_batch_fn(cfg, bank, mesh2)
+
+
 def test_dp_sharded_graph_config(mesh8):
     """VERDICT r2 missing #2: a GRAPH-enabled config (config3's stage chain:
     SLIC + connectivity + affinity + n-cut) under plain data parallelism.
@@ -258,8 +284,8 @@ def test_dp_sharded_graph_config(mesh8):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gabor_color_image_segmentation_tpu.models.pipeline import segment_batch
-    from gabor_color_image_segmentation_tpu.parallel.sharding import (
+    from gabor_color_image_segmentation.models.pipeline import segment_batch
+    from gabor_color_image_segmentation.parallel.sharding import (
         make_mesh,
         make_sharded_fn,
     )
@@ -304,7 +330,7 @@ def test_dp_sharded_graph_config(mesh8):
 
 
 def _shard_rows(fn, mesh, in_specs, out_specs):
-    from gabor_color_image_segmentation_tpu.parallel.sharding import (
+    from gabor_color_image_segmentation.parallel.sharding import (
         _shard_map_unchecked,
     )
 
@@ -318,12 +344,12 @@ def test_connectivity_sharded_bit_equal(mesh8):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from gabor_color_image_segmentation_tpu.models.slic import (
+    from gabor_color_image_segmentation.models.slic import (
         enforce_connectivity_device,
         grid_shape,
         slic,
     )
-    from gabor_color_image_segmentation_tpu.parallel.tiled_graph import (
+    from gabor_color_image_segmentation.parallel.tiled_graph import (
         enforce_connectivity_sharded,
     )
     from golden.features import rgb_to_lab_np
@@ -351,8 +377,8 @@ def test_slic_sharded_matches_unsharded(mesh8):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from gabor_color_image_segmentation_tpu.models.slic import slic
-    from gabor_color_image_segmentation_tpu.parallel.tiled_graph import (
+    from gabor_color_image_segmentation.models.slic import slic
+    from gabor_color_image_segmentation.parallel.tiled_graph import (
         slic_sharded,
     )
     from golden.features import rgb_to_lab_np
@@ -396,8 +422,8 @@ def test_tiled_graph_equals_untiled(mesh8):
         untiled = np.asarray(untiled)
         aligned = align_labels(tiled, untiled)
         agree = (aligned == untiled).mean()
-        # tightened from 0.999 (round-4 flip decomposition: zero flips at
-        # every stage boundary — PARITY.md, exp_tiled_graph_parity.py)
+        # tightened from 0.999 (flip decomposition: zero flips at every
+        # stage boundary — PARITY.md)
         assert agree > 0.9999, f"pool={pool}: tiled-vs-untiled graph {agree}"
 
 
@@ -409,7 +435,7 @@ def test_2d_mesh_batch_space_graph():
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs 8 fake devices")
-    from gabor_color_image_segmentation_tpu.parallel.tiling import (
+    from gabor_color_image_segmentation.parallel.tiling import (
         segment_tiled_batch,
     )
 
@@ -530,16 +556,16 @@ def test_tiled_pooled_energies_bitwise(small_mosaic):
     import jax.numpy as jnp
     import pytest
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.models.pipeline import (
+    from gabor_color_image_segmentation.config import preset
+    from gabor_color_image_segmentation.models.pipeline import (
         _pool2x2_nhwc,
         compute_energies,
     )
-    from gabor_color_image_segmentation_tpu.ops.bank import make_bank
-    from gabor_color_image_segmentation_tpu.ops.modulated import (
+    from gabor_color_image_segmentation.ops.bank import make_bank
+    from gabor_color_image_segmentation.ops.modulated import (
         gabor_energies_mod,
     )
-    from gabor_color_image_segmentation_tpu.ops.tiled import (
+    from gabor_color_image_segmentation.ops.tiled import (
         gabor_energies_tiled,
     )
     from golden.features import rgb_to_lab_np
